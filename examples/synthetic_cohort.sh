@@ -4,7 +4,7 @@
 #
 # Fabricates an alignment cohort with planted copy-number structure plus a
 # phased haplotype panel, then runs the full pipeline: built-in ingestion
-# (BAM or from-scratch CRAM) -> TPU cohort math (steps 4-6) -> native PBWT
+# (BAM or from-scratch CRAM) -> device cohort math (steps 4-6) -> native PBWT
 # IBS neighbors -> haploid phasing; prints the haploid copy-number table
 # next to the planted truth.
 #

@@ -1,8 +1,7 @@
-"""grid_tpu — a TPU-native framework for haplotype-resolved VNTR copy-number
-inference from binned WGS coverage.
+"""grid_tpu — an accelerator (JAX) framework for haplotype-resolved VNTR
+copy-number inference from binned WGS coverage.
 
-A from-scratch re-design (not a port) of the capabilities of GRiD
-(reference: /root/reference). The cohort depth matrix (samples x genome bins)
+A from-scratch re-design (not a port) of the capabilities of GRiD. The cohort depth matrix (samples x genome bins)
 lives as a sharded ``jnp`` array over a ``jax.sharding.Mesh``; normalization,
 nearest-neighbor search, diploid CN estimation and iterative haplotype
 phasing are pure, jittable functions composed into one fused device step,

@@ -18,13 +18,13 @@ import click
 from grid_tpu.utils.logging import log, make_console
 
 BANNER = r"""
-   ____ ____  _ ____        _____ ____  _   _
-  / ___|  _ \(_)  _ \      |_   _|  _ \| | | |
- | |  _| |_) | | | | |_____  | | | |_) | | | |
- | |_| |  _ <| | |_| |_____| | | |  __/| |_| |
-  \____|_| \_\_|____/        |_| |_|    \___/
+   ____ ____  _ ____         ____ ____  _   _
+  / ___|  _ \(_)  _ \       / ___|  _ \| | | |
+ | |  _| |_) | | | | |_____| |  _| |_) | | | |
+ | |_| |  _ <| | |_| |_____| |_| |  __/| |_| |
+  \____|_| \_\_|____/       \____|_|    \___/
 
-  TPU-native VNTR copy-number inference
+  GPU-accelerated VNTR copy-number inference
 """
 
 
@@ -44,7 +44,7 @@ def _load_and_prepare(config_path, validate=True):
 @click.group(context_settings=dict(help_option_names=["-h", "--help"]))
 @click.version_option(package_name=None, version=__import__("grid_tpu").__version__)
 def cli():
-    """grid_tpu — TPU-native haplotype-resolved VNTR copy-number estimation."""
+    """grid_tpu — GPU-accelerated haplotype-resolved VNTR copy-number estimation."""
 
 
 @cli.command()

@@ -142,6 +142,7 @@ STEP_SCHEMA = [
 
 # grid_tpu device/runtime section (new; all optional).
 DEVICE_SCHEMA = [
+    {"path": ("device", "platform"), "default": "auto"},  # auto|cpu|gpu|default (utils/device.py)
     {"path": ("device", "dtype"), "default": "auto"},  # auto|float32|float64|bfloat16
     {"path": ("device", "mesh_shape"), "default": None},  # e.g. [8] or [4, 2]
     {"path": ("device", "fused"), "default": False},  # steps 4-7 as one device program
@@ -221,6 +222,13 @@ def validate_steps(config, errors, warnings, schema=None):
                 warnings.append(f"{field_name} not set. Defaulting to {entry['default']!r}.")
         elif entry.get("is_file") and not Path(value).exists():
             errors.append(f"File not found: {field_name} = {value}")
+
+    platform = _get_nested(config, "device", "platform")
+    if platform is not None:
+        from grid_tpu.utils.device import PLATFORMS
+
+        if str(platform).lower() not in PLATFORMS:
+            errors.append(f"device.platform must be one of {PLATFORMS}, got {platform!r}")
 
     # Q3 parity warning: count_reads.min_mapq is silently ignored by the step
     # (top-level min_mapq is used, ref grid/utils/count_reads.py:24).

@@ -83,8 +83,8 @@ def find_files(directory_loc, samples, expected_type=None):
     Per-sample result is identical to ``find_file`` (lexicographically
     first ``*{sample}*.{expected_type}`` match, or None), but the cost is
     O(files + samples·files-of-type string scans in C) instead of a full
-    glob per sample — at 2,504 samples the per-sample glob was 27.7 s of
-    the one-pass ingest's 59 s wall (12.5M fnmatch regex calls).
+    glob per sample — at 2,504 samples the per-sample glob (12.5M fnmatch
+    regex calls) was a large share of the one-pass ingest's wall.
     """
     samples = list(samples)
     if not expected_type:

@@ -25,8 +25,8 @@ import numpy as np
 
 
 # Output gzip level for the large writers. Python's GzipFile default (9)
-# measured 4.9 s on the N=2504 x k=500 neighbors file vs 0.27 s at level 1
-# (~25% larger file); decompressed content — the parity contract — is
+# is many times slower than level 1 on the N=2504 x k=500 neighbors file
+# for a somewhat smaller file; decompressed content — the parity contract — is
 # identical either way, and the reference's own .gz headers already differ
 # run-to-run (mtime). GRID_TPU_GZ_LEVEL overrides (e.g. 9 for archival).
 import os as _os
@@ -268,8 +268,8 @@ def write_neighbors_dense(path, sample_ids, scales, nbr_idx, nbr_norm_dists) -> 
     path.parent.mkdir(parents=True, exist_ok=True)
 
     # native fast path: %.2f-identical cents formatter + BGZF/libdeflate
-    # blocks (native/src/textgz.cpp) — the Python path below spends ~2 s
-    # formatting+joining at N=2504/k=500 vs ~0.2 s native. Same contract:
+    # blocks (native/src/textgz.cpp) — the Python path below spends far
+    # longer formatting+joining at N=2504/k=500. Same contract:
     # identical decompressed bytes (tests/test_io_formats.py pins it).
     if k and _native_write_neighbors(path, sample_ids, scales, nbr_idx,
                                      nbr_norm_dists):

@@ -54,9 +54,8 @@ def _bulk_alloc_mode():
     """Raise glibc's trim/mmap thresholds (128 MB) once per process before
     a cohort scan. The per-file scratch here is ~100 MB of short-lived
     buffers; at default thresholds glibc mmap()s them and returns the
-    pages to the kernel on free, so EVERY file re-soft-faults them —
-    measured 650 -> ~300 ms per 3M-line file once the fix keeps freed
-    blocks heap-reusable. Cost: freed scratch stays in RSS up to the heap
+    pages to the kernel on free, so EVERY file re-soft-faults them; the
+    raised thresholds keep freed blocks heap-reusable. Cost: freed scratch stays in RSS up to the heap
     high-water mark (bounded by one file's scratch). GRID_TPU_NO_MALLOPT=1
     opts out; no-op off glibc."""
     global _BULK_ALLOC_DONE
@@ -84,8 +83,8 @@ def _dedupe_last_wins(starts, ends, depths):
     mosdepth beds are position-sorted, so the staged arrays are almost
     always already non-decreasing in (start, end) — that case is a single
     O(n) boundary scan. The general case uses a STABLE argsort of the
-    packed uint64 keys (np.unique(axis=0)'s void-dtype argsort measured
-    ~0.4 s per 3M-row sample; this path is ~20x cheaper).
+    packed uint64 keys, much cheaper than np.unique(axis=0)'s void-dtype
+    argsort).
 
     Output order: already-sorted input keeps its file order; UNSORTED
     input comes back (start, end)-key-sorted, not in original file order
@@ -159,11 +158,11 @@ def population_mean_depths(per_sample):
     Returns (regions [M, 2] sorted, means [M]). Incremental union over
     packed uint64 keys, one sample at a time, instead of concatenating
     every sample's keys and running one global ``np.unique`` — at 100 x
-    3M rows the global form sorts ~300M keys (~110 s); here the first
+    3M rows the global form sorts ~300M keys; here the first
     sample seeds the sorted universe and each later sample either
 
     - matches it exactly (one O(n) compare + two vector adds — the
-      regular-mosdepth-grid common case, ~15 ms/sample), or
+      regular-mosdepth-grid common case), or
     - splits into hits (accumulated via ``np.bincount`` on searchsorted
       positions) and misses (buffered, merged into the universe in bulk
       when the buffer grows past half the universe).
@@ -287,7 +286,7 @@ def stage_cohort(
 
     # per-sample projection onto the valid-region universe; the packed
     # region keys are hoisted out of the loop (repacking 3M regions per
-    # sample measured ~12 s of a 47 s staging call at 20 x 3M rows) and a
+    # sample dominated staging otherwise) and a
     # sample whose keys EQUAL the universe maps by identity — the regular
     # mosdepth-grid common case
     reg_keys = _composite(valid_regions[:, 0], valid_regions[:, 1])
@@ -334,7 +333,7 @@ def stage_cohort(
     # case) are written whole, so zero-init would double the memory
     # traffic on a multi-GB matrix; partial rows zero themselves first.
     # Row ranges fill on the scan thread pool (numpy copies release the
-    # GIL) — the serial fill was ~12 s of the 2.7 GB config-2 matrix.
+    # GIL) — the serial fill was slow on the 2.7 GB config-2 matrix.
     values = np.empty((n, r), dtype=np.float64)
     mask = np.empty((n, r), dtype=bool)
 

@@ -9,7 +9,7 @@ program over static shapes:
         -> normalize (masked stats)               ~ O(N R)
         -> region selection + variance filter     (masking, not gathering)
         -> z prep (clip/fill/zero columns)
-        -> kNN (blocked MXU matmul + top_k)       ~ O(N^2 R)  <- dominant
+        -> kNN (blocked Gram matmul + top_k)      ~ O(N^2 R)  <- dominant
         -> dipCN (gather + prefix-masked mean)    ~ O(N k)
         -> phasing (lax.scan Jacobi sweeps)       ~ O(iters N K)
 
@@ -32,11 +32,9 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from grid_tpu.ops.dipcn import compute_dipcn
 from grid_tpu.ops.knn import (
     d2_matrix,
     knn_squared,
-    knn_squared_pallas,
     prepare_z,
     region_filter_mask,
 )
@@ -64,16 +62,12 @@ class CohortParams(NamedTuple):
     quantize: bool = True  # mimic %.2f file round-trip of scales/z
     row_block: int = 512  # kNN panel rows (large-N path)
     dipcn_lists: bool = False  # recycle the sorted step-5 lists for the
-    # dipCN thresholds (dipcn_from_lists) — measured a tie vs the scratch
-    # bisection on the real chip (scripts/probe_dipcn_lists.py), kept as
-    # an opt-in for platforms where the d2 re-reads are not free
-    use_pallas: bool = False  # experimental Pallas kNN (slower than the
-    # XLA path under synchronized timing; see ops/pallas_kernels.py)
-    # d2-resident fast path: materialize the [N, N] distance matrix once
-    # and run selection + threshold dipCN against it (no [N, k] gathers —
-    # measured 30.9 -> ~7 ms at N=2504/k=500 on one v5e). Auto-disabled
-    # when N*N*4 bytes exceeds this budget; the panel-scan + gather path
-    # then runs instead. 0 disables.
+    # dipCN thresholds (dipcn_from_lists) instead of re-bisecting d2; which
+    # form is faster on the GPU is not measured yet
+    # d2-resident path: materialize the [N, N] distance matrix once and run
+    # selection + threshold dipCN against it (no [N, k] gathers).
+    # Auto-disabled when N*N*itemsize bytes exceeds this budget; the
+    # row-panel path then runs instead. 0 disables.
     d2_budget_bytes: int = 2 << 30
 
 
@@ -168,8 +162,7 @@ def cohort_step(
         sample_ok = sample_ok & row_valid
     n = values.shape[0]
     d2_resident = (
-        not params.use_pallas
-        and params.d2_budget_bytes > 0
+        params.d2_budget_bytes > 0
         and n * n * jnp.dtype(values.dtype).itemsize <= params.d2_budget_bytes
     )
     if d2_resident:
@@ -180,22 +173,16 @@ def cohort_step(
             raise ValueError(f"k={params.num_neighbors} must be <= N-1={n - 1}")
         zp = prepare_z(z, norm.mask, params.zmax, region_mask=region_used)
         d2 = d2_matrix(zp, row_valid=sample_ok)
-        # recall_target=1.0 is REQUIRED: the default 0.95 would make the
-        # TPU lowering genuinely approximate, silently breaking the
-        # byte-identity parity contract for the written neighbor lists.
-        # (CPU lowers to an exact sort either way, so CPU tests can't
-        # catch a regression here — tests/test_fused_pipeline.py pins it
-        # by source inspection.)
+        # recall_target=1.0 is REQUIRED: a lower target lets a backend
+        # lower approx_max_k to a genuinely approximate selection, silently
+        # breaking the parity contract for the written neighbor lists.
+        # (CPU and GPU lower it to an exact top-k either way, so tests
+        # can't catch a regression here — tests/test_fused_pipeline.py
+        # pins it by source inspection.)
         neg, nbr_idx = jax.lax.approx_max_k(
             -d2, params.num_neighbors, recall_target=1.0
         )
         sq_dists = -neg
-    elif params.use_pallas:
-        # fused z-prep + Gram matmul in one Pallas kernel (TPU fast path)
-        sq_dists, nbr_idx = knn_squared_pallas(
-            z, norm.mask, region_used, params.zmax, params.num_neighbors,
-            row_valid=sample_ok,
-        )
     else:
         zp = prepare_z(z, norm.mask, params.zmax, region_mask=region_used)
         sq_dists, nbr_idx = knn_squared(
@@ -206,15 +193,10 @@ def cohort_step(
     reads = jnp.asarray(reads)
     reads_valid = jnp.asarray(reads_valid, dtype=bool) & sample_ok
     if d2_resident:
-        # threshold dipCN: no [N, k] gathers (the measured 19.5 ms cost of
-        # the gather formulation); exact stable-tie parity with the
-        # reference's sorted neighbor prefix (ops/select.py). On the real
-        # chip the value-bisection form and the list-recycling form tie
-        # (scratch 3.33 ms vs lists 3.49 ms for fused steps 5-6 at N=2504,
-        # scripts/probe_dipcn_lists.py — XLA already runs the bisection
-        # passes at the memory floor, so recycling the sorted step-5 lists
-        # saves nothing); keep the longer-proven scratch form as default,
-        # dipcn_lists=True opts into the other.
+        # threshold dipCN: no [N, k] gathers; exact stable-tie parity with
+        # the reference's sorted neighbor prefix (ops/select.py).
+        # dipcn_lists=True recycles the sorted step-5 lists instead of
+        # re-bisecting d2 (same take-set).
         w = reads / scales
         if params.dipcn_lists:
             dipcn, dipcn_valid = dipcn_from_lists(
@@ -226,18 +208,9 @@ def cohort_step(
                 d2, w, w, reads_valid, reads_valid,
                 k=params.num_neighbors, n_nbr=params.n_nbr,
             )
-    elif params.use_pallas:
-        # experimental path: no zp in scope; keep the gather formulation
-        nbr_usable = reads_valid[nbr_idx]
-        nbr_contrib = reads[nbr_idx] / scales[nbr_idx]
-        dipcn, dipcn_valid = compute_dipcn(
-            reads / scales, reads_valid, nbr_contrib, nbr_usable,
-            n_nbr=params.n_nbr,
-        )
     else:
         # beyond the d2 budget the SAME gather-free formulation streams row
-        # panels (ops/select.py:dipcn_from_distances_panels) — the [N, k]
-        # gather (the measured-slowest op) is gone at every N. Distance
+        # panels (ops/select.py:dipcn_from_distances_panels). Distance
         # geometry is masked by sample_ok (a read-less sample still
         # occupies k-slots), identical to the resident branch.
         w = reads / scales

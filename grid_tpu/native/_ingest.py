@@ -141,8 +141,8 @@ def ingest_batch(entries, chrom, start, end, flags, count_min_mapq=1,
                  thread_stats=None):
     """Whole-cohort fused ingest in ONE native call (grid_ingest_batch,
     src/batch.cpp): worker threads below the GIL pull files off an atomic
-    cursor and run the single-file ingest cores, so the ~8 ms/sample of
-    GIL-serialized Python dispatch the per-sample wrappers pay disappears.
+    cursor and run the single-file ingest cores, so the GIL-serialized
+    Python dispatch the per-sample wrappers pay disappears.
 
     ``entries``: list of (path, out_bed_gz) — format picked per file by the
     ``.cram`` suffix, matching steps/ingest.py's backend choice. Returns

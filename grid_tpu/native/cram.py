@@ -61,8 +61,8 @@ def write_cram(path, references, records, slice_records=10_000,
     hdr = sam_header.encode()
 
     # ONE attribute-extraction pass (operator.attrgetter returns the whole
-    # tuple in C): 8 separate per-record lambda loops measured ~40% of the
-    # whole call at 200k records (scripts/bench_write_throughput.py)
+    # tuple in C) instead of 8 separate per-record lambda loops, which
+    # dominated the call (scripts/bench_write_throughput.py)
     import operator
 
     get = operator.attrgetter(

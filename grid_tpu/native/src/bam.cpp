@@ -1,6 +1,6 @@
 // Native BAM machinery: region read counting, binned depth, BAI read/write.
 //
-// grid_tpu's TPU-native equivalent of the reference's pysam/htslib usage
+// grid_tpu's native equivalent of the reference's pysam/htslib usage
 // (grid/utils/count_reads.py:95, grid/utils/utils.py:87) and of the
 // mosdepth Nim binary (grid/utils/mosdepth.py:177-225) — implemented from
 // the SAM/BAM/BAI specification over the local BGZF reader, so the

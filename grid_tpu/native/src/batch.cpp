@@ -1,10 +1,9 @@
 // Batched fused ingest: the whole cohort fan-out in ONE native call.
 //
-// Round-3 measurement (docs/perf.md): the per-sample Python dispatch around
-// grid_*_ingest_multi costs ~8 ms/sample serialized on the GIL — ~30% of
-// steps 1-3 wall-clock at N=2504 on 2 cores (the reference's ThreadPool
-// shape, grid/utils/count_reads.py:62-77, has the same structure but pays
-// it per *pass*; we pay it once per sample-call).  This driver moves the
+// The per-sample Python dispatch around grid_*_ingest_multi is serialized
+// on the GIL (the reference's ThreadPool shape,
+// grid/utils/count_reads.py:62-77, has the same structure but pays it per
+// *pass*; we pay it once per sample-call).  This driver moves the
 // fan-out below the GIL: worker threads pull files off an atomic cursor and
 // run the existing single-file ingest cores (grid_bam_ingest_multi /
 // grid_cram_ingest_multi — both thread-safe: no mutable statics, per-thread

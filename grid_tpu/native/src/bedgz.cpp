@@ -65,8 +65,8 @@ inline const char* parse_double(const char* p, const char* lim, double* out) {
   // accumulate every digit into ONE integer and divide once by 10^nf —
   // numerator and denominator are both exact doubles (<= 15 significant
   // digits), so the single rounding gives the IDENTICAL bits to strtod
-  // (the byte-parity contract vs Python float()). strtod was ~40% of the
-  // whole 3M-line scan (docs/perf.md r5).
+  // (the byte-parity contract vs Python float()). strtod was a large share
+  // of the whole 3M-line scan.
   static const double P10[16] = {1.0, 1e1, 1e2, 1e3, 1e4, 1e5, 1e6, 1e7,
                                  1e8, 1e9, 1e10, 1e11, 1e12, 1e13, 1e14,
                                  1e15};

@@ -1,9 +1,9 @@
 // Fast %.2f-identical bed.gz emission shared by the BAM and CRAM binned-
 // depth writers (and the fused ingest pass).
 //
-// The measured cost split for a dense genome-wide bed (160k bins):
-// snprintf formatting 45 ms vs level-1 deflate 34 ms — so the formatter,
-// not zlib, was the larger half of the binner's output wall. This header
+// For a dense genome-wide bed, snprintf formatting cost more than level-1
+// deflate — the formatter, not zlib, was the larger half of the binner's
+// output wall. This header
 // replaces snprintf with an integer fixed-point path that is byte-identical
 // to printf's %.2f (fuzz-checked over 800k rationals in the commit that
 // introduced it): depth cents are computed by round-half-even on the
@@ -15,7 +15,7 @@
 // Output container (round 3): BGZF by default — the same block-gzip framing
 // mosdepth itself emits for regions.bed.gz (every gzip consumer still reads
 // it; tabix/CSI become possible). Blocks are raw-deflated with libdeflate
-// when the system library exists (dlopen'd, ~3x faster than zlib level 1 at
+// when the system library exists (dlopen'd, faster than zlib level 1 at
 // a comparable ratio), else with zlib. GRID_TPU_BED_FORMAT=gzip restores the
 // previous single-member gzFile stream for A/B measurement.
 #pragma once
@@ -334,8 +334,8 @@ struct BedWriter {
 // ranges its sample left untouched and fresh-compresses only blocks
 // containing a nonzero bin. For locus-windowed cohorts (the 1000G e2e
 // shape: one covered window in a 160k-bin contig) that removes ~99% of
-// the deflate work — the dominant cost of the dense genome-wide bed
-// (measured 15.6 of 15.9 ms/sample). Decompressed output is
+// the deflate work — the dominant cost of the dense genome-wide bed.
+// Decompressed output is
 // byte-identical; only block boundaries move (deterministic, same for
 // every sample), which no gzip consumer observes. Process-wide,
 // deliberately leaked (DecodePool pattern); a cohort populates one entry

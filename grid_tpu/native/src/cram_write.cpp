@@ -73,9 +73,9 @@ void ltf8_encode(Bytes& out, int64_t sv) {
 
 int gzip_level() {
   // level 1 by default, like the text output writers (io/formats.py:31):
-  // decoded content is identical at every level; level 6 measured 1.45x
-  // slower for ~27% smaller files at 200k records
-  // (scripts/bench_write_throughput.py). GRID_TPU_GZ_LEVEL overrides
+  // decoded content is identical at every level; higher levels are slower
+  // for smaller files (scripts/bench_write_throughput.py).
+  // GRID_TPU_GZ_LEVEL overrides
   // (e.g. 6/9 for archival).
   static int lvl = [] {
     const char* e = getenv("GRID_TPU_GZ_LEVEL");

@@ -1,9 +1,9 @@
 // Native writer for the step-5 neighbors artifact (.tsv.gz).
 //
 // The Python writer (io/formats.py write_neighbors_dense) vectorizes the
-// %.2f formatting with np.char.mod but still spends ~2 s formatting +
-// joining 2504 x 1502 object cells, ~2.6 s of the 17.8 s e2e pipeline
-// (docs/perf.md r4-final). This C path reuses the bedwrite machinery:
+// %.2f formatting with np.char.mod but still spends seconds formatting +
+// joining 2504 x 1502 object cells at N=2504. This C path reuses the
+// bedwrite machinery:
 // the %.2f-identical integer cents formatter (fuzz-pinned, snprintf
 // guard band for exact-tie neighborhoods; plain snprintf for negatives)
 // and the BGZF/libdeflate block writer (every gzip consumer reads BGZF;

@@ -5,9 +5,9 @@ reference's broken ``align_lpa`` driver, SURVEY §3.5): thousands of reads
 are scored against a handful of exon reference sequences in one wavefront
 computation.
 
-TPU mapping: the DP recurrence runs as a ``lax.scan`` over QUERY positions —
-each step updates a full [n_reads, n_refs, ref_len] score slab with pure
-elementwise max/add (VPU work, no data-dependent control flow), so the whole
+Device mapping: the DP recurrence runs as a ``lax.scan`` over QUERY
+positions — each step updates a full [n_reads, n_refs, ref_len] score slab
+with pure elementwise max/add (no data-dependent control flow), so the whole
 batch advances one wavefront per step. Memory is O(batch * ref_len) per
 carried row; FLOPs are O(q_len * ref_len * batch) — dense, regular, and
 fusable. Linear gap penalties (the classification task needs relative

@@ -1,12 +1,16 @@
 """Depth-matched nearest-neighbor search (pipeline step 5).
 
-TPU-first re-design of the reference's cohort kNN
+Accelerator re-design of the reference's cohort kNN
 (``grid/utils/find_neighbors.py``): instead of a BallTree, pairwise squared
-Euclidean distances are computed as a blocked Gram matmul on the MXU —
-``d2(a, b) = |a|^2 + |b|^2 - 2 a.b`` — followed by ``jax.lax.top_k``. Row
+Euclidean distances are computed as a blocked Gram matmul —
+``d2(a, b) = |a|^2 + |b|^2 - 2 a.b`` — followed by a top-k selection. Row
 blocks bound peak memory at O(block * N) so the full N x N distance matrix
-never materializes in HBM; FLOPs ride the systolic array at
-2 * N^2 * R.
+never materializes in device memory; the matmul does 2 * N^2 * R FLOPs.
+
+Every Gram and weight matmul in the package runs at :data:`GRAM_PRECISION`.
+An f32 matmul left at the default precision may run in TF32 on a GPU, which
+keeps about three decimal digits and can change which neighbours are
+selected; the float64 oracle tolerances are stated at full f32 precision.
 
 Semantics preserved (quirk Q5): distances are SQUARED Euclidean and later
 normalized by 2 * R_use; self is excluded; each sample gets
@@ -23,6 +27,10 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+# Precision of every Gram and weight matmul (knn, select, pknn). Trading it
+# for speed is a precision change, to be justified against the oracle.
+GRAM_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def filter_regions_by_variance(
@@ -100,7 +108,7 @@ def prepare_z(z, mask, zmax: float, region_mask=None):
 def knn_squared(z, k: int, row_valid=None, row_block: int = 512,
                 selector: str = "approx", recall_target: float = 1.0,
                 col_block: int | None = None):
-    """Exact k-nearest-neighbor search by blocked MXU matmul.
+    """Exact k-nearest-neighbor search by blocked Gram matmul.
 
     Args:
         z: [N, R] prepared z-matrix (clipped, zero-filled).
@@ -109,20 +117,18 @@ def knn_squared(z, k: int, row_valid=None, row_block: int = 512,
             returned as neighbors and their own results are junk.
         row_block: rows per distance panel; panel memory is
             ``row_block * N * 4`` bytes.
-        selector: "approx" uses ``lax.approx_max_k`` — the TPU PartialReduce
-            op, ~5x faster than ``lax.top_k`` at cohort scale; with the
-            default ``recall_target=1.0`` it aggregates to an exact top-k
-            (measured 100% set agreement). "top_k" forces ``lax.top_k``.
+        selector: "approx" uses ``lax.approx_max_k``; with the default
+            ``recall_target=1.0`` it is an exact top-k (the CPU and GPU
+            backends lower it to one). "top_k" forces ``lax.top_k``.
             "bisect" uses the exact threshold-bisection selection
             (:func:`grid_tpu.ops.select.sorted_smallest_k`) — memory-bound
             compare/count passes instead of per-row k-element selection
-            state; the winner when k is a large fraction of N (see
-            docs/perf.md).
+            state. Which selector is fastest on the GPU at each shape is
+            not measured yet.
         recall_target: recall for the approx selector (1.0 = exact).
-        col_block: two-stage selection width. Selection over very wide
-            panels is the large-N bottleneck; splitting the N columns into
-            blocks, selecting k per block, and exact-merging the candidates
-            measured ~2x faster at N=65536 (8192 beat flat selection).
+        col_block: two-stage selection width: split the N columns into
+            blocks, select k per block, and exact-merge the candidates, so
+            no selection runs over a very wide panel.
             None = auto: flat below 16384 columns, 8192-wide blocks above.
 
     Returns:
@@ -155,8 +161,8 @@ def knn_squared(z, k: int, row_valid=None, row_block: int = 512,
 
     def panel(carry, inputs):
         zb, sqb, row0 = inputs
-        # Gram panel on the MXU: [B, N]
-        g = jnp.dot(zb, zt, preferred_element_type=z.dtype)
+        # Gram panel: [B, N]
+        g = jnp.dot(zb, zt, precision=GRAM_PRECISION, preferred_element_type=z.dtype)
         d2 = sqb[:, None] + sq_norms[None, :] - 2 * g
         d2 = jnp.maximum(d2, 0)
         # Self-exclusion: global row ids vs column ids.
@@ -200,45 +206,17 @@ def knn_squared(z, k: int, row_valid=None, row_block: int = 512,
     return sq_dists.reshape(n_pad, k)[:n], idx.reshape(n_pad, k)[:n]
 
 
-def knn_squared_pallas(z, mask, region_mask, zmax: float, k: int, row_valid=None,
-                       tile_m: int = 256, tile_r: int = 512, interpret: bool = False):
-    """Fused-prep kNN: the clip/zero z-preparation happens inside the Gram
-    matmul tiles (grid_tpu.ops.pallas_kernels.zprep_gram), so the prepared
-    matrix never round-trips HBM. Semantics identical to
-    ``knn_squared(prepare_z(z, mask, zmax, region_mask), k, ...)``.
-    """
-    from grid_tpu.ops.pallas_kernels import zprep_gram
-
-    n = z.shape[0]
-    if k > n - 1:
-        raise ValueError(f"k={k} must be <= N-1={n - 1}")
-    g = zprep_gram(z, mask, region_mask, zmax, tile_m=tile_m, tile_r=tile_r,
-                   interpret=interpret)
-    sq_norms = jnp.diagonal(g)
-    d2 = sq_norms[:, None] + sq_norms[None, :] - 2 * g
-    d2 = jnp.maximum(d2, 0)
-    big = jnp.asarray(jnp.finfo(d2.dtype).max, dtype=d2.dtype)
-    eye = jnp.eye(n, dtype=bool)
-    d2 = jnp.where(eye, big, d2)
-    if row_valid is not None:
-        d2 = jnp.where(~jnp.asarray(row_valid, dtype=bool)[None, :], big, d2)
-    neg, idx = jax.lax.top_k(-d2, k)
-    return -neg, idx
-
-
 def d2_matrix(z, row_valid=None):
     """Materialize the full [N, N] squared-distance matrix on device, with
     the diagonal (self) and invalid-row columns set to finfo.max.
 
-    At N=2504 this is 25 MB of HBM and measures ~3 ms on one v5e chip —
-    materializing once and running BOTH the list selection and the
-    threshold dipCN against it beats the panel scan + [N, k] gather design
-    by ~6x, because TPU gathers are the slow op, not the matmul
-    (scripts/probe_decisive2.py; docs/perf.md).
+    At N=2504 this is 25 MB, small enough to run BOTH the list selection
+    and the threshold dipCN against it without any [N, k] gather.
     """
     z = jnp.asarray(z)
     sq = jnp.sum(z * z, axis=1)
-    d2 = jnp.maximum(sq[:, None] + sq[None, :] - 2 * (z @ z.T), 0)
+    g = jnp.dot(z, z.T, precision=GRAM_PRECISION)
+    d2 = jnp.maximum(sq[:, None] + sq[None, :] - 2 * g, 0)
     big = jnp.asarray(jnp.finfo(z.dtype).max, z.dtype)
     rows = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 0)
     cols = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 1)

@@ -1,8 +1,8 @@
 """Masked-array reduction primitives.
 
 The reference leans on numpy NaN propagation (``np.nanmean`` /
-``np.nansum``, grid/utils/normalize_mosdepth.py:440-458). On TPU, NaN-based
-control flow is hostile to the VPU and to XLA fusion, so grid_tpu carries an
+``np.nansum``, grid/utils/normalize_mosdepth.py:440-458). On an accelerator,
+NaN-based control flow is hostile to XLA fusion, so grid_tpu carries an
 explicit ``(values, mask)`` pair everywhere and reduces with ``jnp.where`` —
 branch-free, fusable, and identical in semantics at float64.
 

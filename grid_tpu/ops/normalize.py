@@ -17,8 +17,7 @@ jittable function over an explicit ``(values, mask)`` pair:
     true z-scores.
 
 Everything is branch-free jnp; under ``jit`` XLA fuses the whole transform
-into a handful of HBM passes. The heaviest reductions also have a Pallas
-fused path (``grid_tpu.ops.pallas_kernels``) used for large cohorts.
+into a handful of passes over device memory.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Iterative haplotype copy-number inference (pipeline step 7).
 
-TPU re-design of the reference's phasing loop
+Accelerator re-design of the reference's phasing loop
 (``grid/utils/hi_inference.py:175-250``; math
 ``docs/source/algorithms/hi_inference.rst:55-93``): the ragged per-haplotype
 neighbor lists become padded ``[2N, MAX_NBR]`` index/weight arrays, and the
@@ -190,14 +190,14 @@ def compute_imputed_host(i, hap_irrs, hap_nbrs, mean_irrs):
 def phase_bootstrap(key, irrs, nbr_idx, nbr_w, nbr_valid, min_nbr: int, n_iters: int,
                     n_boot: int = 100):
     """Bootstrap uncertainty for the haplotype estimates, vmapped over
-    replicates (the TPU-native answer to "how stable is this phasing?").
+    replicates (the accelerator answer to "how stable is this phasing?").
 
     Each replicate resamples every haplotype's neighbor list with
     replacement (within its own valid slots — pad_hap_neighbors stores valid
     entries as a prefix, so slot j < degree is always a real neighbor) and
     reruns the full n_iters phasing. All replicates execute as ONE vmapped
     program: the sweep's gathers and reductions batch across the replicate
-    axis, so B bootstraps cost barely more than one on the MXU/VPU.
+    axis, so B bootstraps cost barely more than one.
 
     Args:
         key: jax PRNG key.

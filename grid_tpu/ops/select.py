@@ -1,12 +1,10 @@
 """Exact sorted top-k-smallest selection via threshold bisection.
 
-Replaces ``lax.approx_max_k`` in the kNN hot path (the reference hot loop is
-``grid/utils/find_neighbors.py:179-227``; here selection is the single
-largest cost of the fused steps 4-6 — see docs/perf.md). The TPU
-PartialReduce op must maintain k-element state per row, which at the
-pipeline's k=500 is most of the row; this scheme instead decomposes
-selection into the primitives the hardware is actually fast at — full-array
-compares/reductions (VPU, memory-bound), cumulative sums, and tiny gathers:
+An alternative to ``lax.approx_max_k`` in the kNN hot path (the reference
+hot loop is ``grid/utils/find_neighbors.py:179-227``). A top-k op must
+maintain k-element state per row, which at the pipeline's k=500 is most of
+the row; this scheme instead decomposes selection into full-array
+compares/reductions (memory-bound), cumulative sums, and tiny gathers:
 
 1. bitcast the non-negative f32 distances to int32 (order-preserving);
 2. per-row BISECTION on the key space for the exact k-th smallest key
@@ -30,6 +28,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from grid_tpu.ops.knn import GRAM_PRECISION
+
 
 # order-preserving integer key type per float dtype (values are >= 0, so the
 # raw bit pattern as a SIGNED int of the same width is monotone)
@@ -49,11 +49,9 @@ def _kth_smallest_key(u, k, arity: int = 2):
 
     ``arity``: probes per pass; ``arity - 1`` thresholds per ``u`` read,
     narrowing the interval by log2(arity) bits. Exact for any arity.
-    MEASURED (one v5e, N=2504, docs/perf.md): 4-ary made the dipCN step
-    SLOWER (1.79 -> 2.10 ms) — the pass is not purely read-bound, and the
-    extra compare+reduce per pass costs more than the passes saved — so
-    binary stays the default; the knob remains for re-measurement on other
-    shapes/hardware.
+    Binary is the default: a pass is not purely read-bound, so the extra
+    compare+reduce per pass of a wider arity may cost more than the passes
+    it saves. Not measured on the GPU yet.
     """
     n = u.shape[0]
     bits = 8 * u.dtype.itemsize
@@ -160,7 +158,7 @@ def smallest_k_mask(d2, k):
 def dipcn_from_distances(d2, rnorm, nbr_w, col_usable, sample_valid,
                          k: int, n_nbr: int):
     """dipCN straight from the distance matrix — no neighbor-list
-    materialization, no gathers (they are the TPU-slow ops; docs/perf.md).
+    materialization, no [N, k] gathers.
 
     Exactly equivalent to gathering the k nearest neighbors (ascending,
     stable ties) and running :func:`grid_tpu.ops.dipcn.compute_dipcn`:
@@ -216,7 +214,7 @@ def dipcn_from_lists(d2, sq_dists, nbr_idx, rnorm, nbr_w, col_usable,
     Selects exactly the same neighbor prefix as
     :func:`dipcn_from_distances` (values agree to f32 summation-order
     tolerance — the take-set is identical but XLA fuses the final masked
-    sum differently) while being ~5x cheaper on the d2-resident path: the
+    sum differently) while making fewer passes over d2: the
     fused cohort step has ALREADY selected the k
     nearest neighbors (``sq_dists``/``nbr_idx``, the written step-5
     artifact), and those sorted lists contain every order statistic the
@@ -231,8 +229,7 @@ def dipcn_from_lists(d2, sq_dists, nbr_idx, rnorm, nbr_w, col_usable,
       lexicographic compare/count pass over d2 (vs the second 31-pass key
       bisection + tie-cut).
 
-    What remains over d2 is ~12 fused passes instead of ~86 (measured
-    1.79 -> 0.35 ms at N=2504/k=500; scripts/probe_dipcn_lists.py).
+    What remains over d2 is ~12 fused passes instead of ~86.
 
     PRECONDITION: the lists are the exact k smallest distances per row,
     ascending, ties broken by ascending column — what ``sorted_smallest_k``
@@ -299,8 +296,8 @@ def dipcn_from_distances_multi(d2, rnorm, nbr_w, col_usable, sample_valid,
     multi-window ingest guarantees it: a sample errors for all windows of a
     scan or none), the threshold/tie-cut machinery of
     :func:`dipcn_from_distances` is locus-independent and the L masked sums
-    collapse into ONE [N, N] @ [N, L] matmul — an MXU op, so 734 catalog
-    loci cost barely more than one.
+    collapse into ONE [N, N] @ [N, L] matmul, so 734 catalog loci cost
+    barely more than one.
 
     Per-locus results match :func:`dipcn_from_distances` run in a loop up
     to f32/f64 summation order (the matmul accumulates in a different
@@ -340,8 +337,8 @@ def dipcn_from_distances_multi(d2, rnorm, nbr_w, col_usable, sample_valid,
     take = take & (m_eff > 0)[:, None]
 
     w = jnp.asarray(nbr_w, d2.dtype)  # [N, L]
-    tot = jnp.dot(take.astype(d2.dtype), w,
-                  preferred_element_type=d2.dtype)  # [N, L] — the MXU op
+    tot = jnp.dot(take.astype(d2.dtype), w, precision=GRAM_PRECISION,
+                  preferred_element_type=d2.dtype)  # [N, L]
     nbr_mean = tot / jnp.maximum(m_eff, 1)[:, None]
     dipcn = jnp.asarray(rnorm, d2.dtype) / nbr_mean
     out_valid = jnp.asarray(sample_valid, bool) & (m_eff > 0)[:, None]
@@ -354,15 +351,14 @@ def dipcn_from_distances_panels(zp, rnorm, nbr_w, col_usable, sample_valid,
                                 row_valid=None):
     """Gather-free threshold dipCN WITHOUT the resident [N, N] matrix.
 
-    Extends :func:`dipcn_from_distances` past the d2 HBM budget (~23k rows
-    at 2 GB): stream ROW panels — each lax.scan step materializes one
+    Extends :func:`dipcn_from_distances` past the d2 device-memory budget
+    (~23k rows at 2 GB): stream ROW panels — each lax.scan step materializes one
     [row_block, N] distance panel from the prepared z (one Gram matmul per
     panel, the only [N, N]-order FLOPs) and runs the exact resident core on
     it. A panel holds its rows' ENTIRE distance vectors, so the k-th
     threshold, the tie cut, and the masked sums are exact per row — unlike
-    a column-panel decomposition, which cannot see the whole row (and whose
-    per-panel bisection was measured 40x slower at small panel widths,
-    docs/perf.md). Peak memory O(row_block * N); bisection traffic is the
+    a column-panel decomposition, which cannot see the whole row and would
+    need a bisection per narrow panel. Peak memory O(row_block * N); bisection traffic is the
     same 31 x N^2 compare/count bytes as the resident form, just panel-wise.
 
     Bit-identical to dipcn_from_distances on the same inputs: the panel
@@ -419,7 +415,7 @@ def dipcn_from_distances_panels(zp, rnorm, nbr_w, col_usable, sample_valid,
         zrow = jax.lax.dynamic_slice_in_dim(zp_p, i0 * b, b, axis=0)
         vrow = jax.lax.dynamic_slice_in_dim(valid_p, i0 * b, b, axis=0)
         rrow = jax.lax.dynamic_slice_in_dim(rnorm_p, i0 * b, b, axis=0)
-        g = jnp.dot(zrow, zp.T, preferred_element_type=dt)
+        g = jnp.dot(zrow, zp.T, precision=GRAM_PRECISION, preferred_element_type=dt)
         d2 = jnp.sum(zrow * zrow, axis=1)[:, None] + col_sq[None, :] - 2 * g
         d2 = jnp.maximum(d2, 0)
         rows = i0 * b + jax.lax.iota(jnp.int32, b)

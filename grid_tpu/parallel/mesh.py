@@ -1,10 +1,10 @@
 """Device mesh construction and sharding helpers.
 
-The cohort (sample) axis is grid_tpu's data-parallel axis — the TPU-native
+The cohort (sample) axis is grid_tpu's data-parallel axis — the device
 re-expression of the reference's only parallelism (thread pools over samples,
-SURVEY §2.5). A 1-D ``cohort`` mesh shards matrix rows across chips/hosts;
-collectives (psum for column statistics, ppermute rings for kNN) ride
-ICI/DCN via XLA.
+SURVEY §2.5). A 1-D ``cohort`` mesh shards matrix rows across GPUs/hosts;
+collectives (psum for column statistics, ppermute rings for kNN) are
+lowered by XLA (NCCL over NVLink between the GPUs of one host).
 
 Multi-host entry: call :func:`init_distributed` once per process, then
 ``cohort_mesh()`` builds the global mesh over all processes' devices.

@@ -5,7 +5,7 @@ single-device :func:`grid_tpu.models.cohort.cohort_step`:
 
 - :func:`auto_sharded_cohort_step` — GSPMD: jit the fused step with cohort
   shardings on its inputs and let XLA's partitioner insert the collectives.
-  Simplest, and optimal for cohorts whose gathered z fits per-device HBM.
+  Simplest, for cohorts whose gathered z fits per-device memory.
 - :func:`sharded_cohort_step` — explicit shard_map composition: psum column
   stats + ring-ppermute kNN, so the N x N distance matrix AND the full
   gathered z never materialize. This is the 100k-sample/biobank path.
@@ -114,10 +114,9 @@ def sharded_cohort_step(
     # ---- steps 5+6: ring kNN with dipCN payloads carried through --------
     # Each row's dipCN contribution (reads/scale) and usability ride the
     # ring WITH the candidate rows, so step 6 needs neither the replicated
-    # reads/scales vectors nor the [N, k] neighbor gather (the
-    # measured-slowest op, docs/perf.md) — the r2 gather-free win extended
-    # to the sharded path. Payload merge cost is O(B*k) per ring step,
-    # noise next to the [B, B] matmul.
+    # reads/scales vectors nor the [N, k] neighbor gather — the gather-free
+    # formulation extended to the sharded path. Payload merge cost is
+    # O(B*k) per ring step, small next to the [B, B] matmul.
     usable_row = reads_valid & sample_ok
     w_row = jnp.where(usable_row, jnp.asarray(reads), 0) / jnp.where(
         scales == 0, 1, scales

@@ -4,7 +4,7 @@ The cross-shard kNN (SURVEY §7): the z-matrix is row-sharded over the cohort
 axis and the full N x N distance matrix must never materialize. Each device
 keeps its local row block resident and a "visiting" block circulates around
 the ring: at step s every device computes distances of its local rows
-against the visiting block (one MXU matmul), folds the result into its
+against the visiting block (one Gram matmul), folds the result into its
 running top-k, and forwards the block with ``ppermute``. After n_devices
 steps every local row has seen every column exactly once.
 
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 from jax import shard_map
 
+from grid_tpu.ops.knn import GRAM_PRECISION
 from grid_tpu.parallel.mesh import COHORT_AXIS
 
 
@@ -44,9 +45,8 @@ def ring_knn(z, k: int, mesh, row_valid=None, payloads=()):
             block brings its rows' attributes; the top-k merge keeps them
             aligned with the selected neighbors). The returned [N, k]
             attribute arrays make the downstream [N]-indexed neighbor
-            gather unnecessary — gathers are the measured-slowest TPU op
-            in this pipeline (docs/perf.md), and on a multi-host mesh the
-            gather would also need the attribute vector replicated.
+            gather unnecessary — on a multi-host mesh that gather would
+            also need the attribute vector replicated.
 
     Returns (sq_dists [N, k], idx [N, k], *carried [N, k]) cohort-sharded,
     ascending by distance.
@@ -70,8 +70,9 @@ def ring_knn(z, k: int, mesh, row_valid=None, payloads=()):
         def step(s, carry):
             block, block_valid, block_pay, best_d, best_i, best_p = carry
             owner = (me - s) % n_dev  # which shard the visiting block came from
-            # distance panel on the MXU: [B, B]
-            g = jnp.dot(z_local, block.T, preferred_element_type=z_local.dtype)
+            # distance panel: [B, B]
+            g = jnp.dot(z_local, block.T, precision=GRAM_PRECISION,
+                        preferred_element_type=z_local.dtype)
             block_sq = jnp.sum(block * block, axis=1)
             d2 = sq_local[:, None] + block_sq[None, :] - 2 * g
             d2 = jnp.maximum(d2, 0)

@@ -1,28 +1,20 @@
-"""Measured dispatch policy: flat (single-device) vs ring (sharded) kNN.
+"""Dispatch policy: flat (single-device) vs ring (sharded) kNN.
 
-The mesh sweep (docs/perf.md "Parallel-layer shape scaling") measured the
-ring kNN LOSING 2x to the single-device op at N=8,192 and winning 1.8x at
-N=32,768 on an 8-device mesh: below a cohort-size crossover the ring's
-per-step collective + merge overhead dominates the O(N^2 R / n_dev) work it
-saves. A config that sets ``device.mesh_shape`` for a small cohort would
-silently pay that 2x, so the fused step consults this policy instead of
+Below a cohort-size crossover the ring's per-step collective + merge
+overhead dominates the O(N^2 R / n_dev) work it saves, so a config that
+sets ``device.mesh_shape`` for a small cohort would pay for the mesh
+without gaining from it. The fused step consults this policy instead of
 following the config blindly.
 
-The crossover is encoded as a row count (geometric midpoint of the two
-measured points). It is a property of the ratio collective-latency :
-matmul-throughput, which is far MORE favorable to the ring on real ICI
-(microsecond collectives) than on the CPU mesh it was measured on — so
-flat-below-16k is the conservative choice on both backends: where the
-constant errs, it errs toward the path that is never 2x wrong.
-
-``device.dispatch: flat|ring`` overrides the policy for measurement runs.
+The crossover is a row count. It was bracketed on an 8-virtual-device CPU
+mesh (scripts/bench_mesh_sweep.py), not on GPUs: it is a property of the
+ratio collective latency : matmul throughput, and has to be re-derived on
+the GPU mesh. ``device.dispatch: flat|ring`` overrides the policy for
+measurement runs.
 """
 
 from __future__ import annotations
 
-# Measured on the 8-virtual-device CPU mesh (scripts/bench_mesh_sweep.py):
-# flat 0.64 s vs ring 1.28 s at N=8,192; flat 12.3 s vs ring 6.7 s at
-# N=32,768. Geometric midpoint of the bracketing measurements.
 RING_CROSSOVER_N = 16_384
 
 

@@ -153,7 +153,7 @@ def run_wgs_pipeline(console=None, config=None, validate: bool = True):
 
     from grid_tpu.utils.device import enable_compilation_cache
 
-    enable_compilation_cache(config_data.get("device", {}).get("compilation_cache"))
+    enable_compilation_cache()
     Path(config_data.get("output_dir", ".")).mkdir(parents=True, exist_ok=True)
 
     timer = StepTimer()

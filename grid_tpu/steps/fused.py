@@ -110,14 +110,13 @@ def run_fused_steps(config, console=None, timer=None):
         min_nbr=hcfg.get("min_neighbors", 1),
         n_iters=0,  # step 7 runs separately over the dipCN-valid universe
         quantize=True,
-        use_pallas=bool(config.get("device", {}).get("use_pallas", False)),
     )
 
     mesh_shape = config.get("device", {}).get("mesh_shape")
     dtype = resolve_dtype(config)
     stage_values = stage.values if dtype is None else stage.values.astype(dtype)
     if mesh_shape:
-        # the ring loses 2x to the flat op below the measured crossover
+        # below the crossover the ring loses to the flat op
         # (parallel/policy.py) — a configured mesh is a capability, not a
         # commitment
         from grid_tpu.parallel.policy import choose_cohort_execution

@@ -6,7 +6,7 @@ neighbors, runs the iterative phasing, writes
 ``ID IRRs hap1phased hap2phased hap1imp hap2imp``.
 
 Two execution modes:
-- device (default): padded arrays + lax.scan Jacobi sweeps (TPU path);
+- device (default): padded arrays + lax.scan Jacobi sweeps;
 - exact (``device.exact_phasing: true``): host Gauss-Seidel matching the
   reference's in-place update order bit-for-bit.
 """

@@ -2,7 +2,7 @@
 
 The reference is strictly single-locus — a whole pipeline run per VNTR
 (examples/1000G_example.sh resolves ONE gene's coordinates from the
-734-region catalog, :58,87). grid_tpu's TPU-first extension: the expensive
+734-region catalog, :58,87). grid_tpu's extension: the expensive
 cohort-level work (genome-wide binned coverage -> normalize -> kNN) is
 LOCUS-INDEPENDENT, so it runs once; only the cheap window-indexed pieces
 (read counting in the locus window, dipCN, phasing) repeat per locus.
@@ -73,7 +73,7 @@ def run_batched_dipcn(shared_config, locus_cfgs, console=None):
     The distance geometry (the written normalized matrix -> prepare_z ->
     pairwise d2) is locus-independent; per locus only the read-count
     weights differ, so the L masked neighbor sums collapse into one
-    [N, N] @ [N, L] MXU matmul (ops/select.py:dipcn_from_distances_multi).
+    [N, N] @ [N, L] matmul (ops/select.py:dipcn_from_distances_multi).
     Loci are grouped by their column-usability pattern (which samples have
     a count) — with the one-pass multi-window ingest that is ONE group.
 

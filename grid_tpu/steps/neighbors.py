@@ -2,7 +2,7 @@
 
 File-compatible with the reference step (grid/utils/find_neighbors.py:11):
 reads the normalized matrix, clips/fills z on device, filters regions by
-variance ratio, runs the blocked-MXU kNN, writes the neighbors format with
+variance ratio, runs the blocked Gram-matmul kNN, writes the neighbors format with
 squared distances / (2 * R_use) (quirk Q5).
 """
 

@@ -1,7 +1,7 @@
 """Step 4: normalize binned coverage across the cohort.
 
 File-compatible with the reference step (grid/utils/normalize_mosdepth.py:23)
-but restructured TPU-first: one host scan per sample (not two), then the
+but restructured for the accelerator: one host scan per sample (not two), then the
 whole normalize transform as a single jitted device computation
 (grid_tpu.ops.normalize), then the reference output format.
 """

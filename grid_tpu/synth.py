@@ -33,6 +33,7 @@ def make_synthetic_cohort(
     reads_per_copy: float = 500.0,
     seed: int = 0,
     missing_frac: float = 0.0,
+    ibs_neighbors: int = 3,
 ):
     """Build a synthetic cohort on disk.
 
@@ -41,13 +42,14 @@ def make_synthetic_cohort(
     hap1_s + hap2_s (haplotype copy numbers drawn near 1.0 with variation),
     so normalization must recover the CN signal. Window read counts are
     CN_s/2 * coverage-proportional, making dipCN ≈ CN_s / mean(CN_nbrs).
+    Each haplotype gets ``ibs_neighbors`` IBS neighbours in the IBS file.
 
     Returns a dict with ids, truth arrays and all file paths.
     """
     return _make_cohort(
         out_dir, n_samples, chrom, window_start, window_end, flank_bins, bin_size,
         mean_depth, depth_sd, reads_per_copy, seed, missing_frac,
-        make_alignments=False, read_len=100,
+        make_alignments=False, read_len=100, ibs_neighbors=ibs_neighbors,
     )
 
 
@@ -224,7 +226,7 @@ def _indel_cigars(read_len):
 def _make_cohort(
     out_dir, n_samples, chrom, window_start, window_end, flank_bins, bin_size,
     mean_depth, depth_sd, reads_per_copy, seed, missing_frac,
-    make_alignments, read_len, file_type="bam", indel_frac=0.0,
+    make_alignments, read_len, file_type="bam", indel_frac=0.0, ibs_neighbors=3,
 ):
     out = Path(out_dir)
     work = out / "mosdepth_workdir"
@@ -352,7 +354,7 @@ def _make_cohort(
                         f"{sid}\t{hap0 + 1}\t{j}\t2.5\t0.1\t{ids[j]}\t{nbr_hap0 + 1}\n"
                     )
                     picked += 1
-                    if picked == 3:
+                    if picked == ibs_neighbors:
                         break
 
     # iLASH-format IBD segments between consecutive samples

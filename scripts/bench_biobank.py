@@ -20,8 +20,8 @@ design). Raise it for capacity probes:
         --xla_cpu_collective_call_terminate_timeout_seconds=3600" \
         JAX_PLATFORMS=cpu python scripts/bench_biobank.py --n 200000 ...
 
-    # single real chip, kNN-only scaling probe:
-    python scripts/bench_biobank.py --tpu --n 131072 --r 2048 --k 500
+    # one GPU, kNN-only scaling probe:
+    python scripts/bench_biobank.py --single --n 131072 --r 2048 --k 500
 """
 
 from __future__ import annotations
@@ -32,10 +32,6 @@ import resource
 import time
 
 import numpy as np
-
-
-def _sync(x):
-    return np.asarray(x).ravel()[0]
 
 
 def peak_rss_gb():
@@ -103,7 +99,7 @@ def run_mesh(args):
             jnp.asarray(hi), jnp.asarray(hw), jnp.asarray(hv), params,
             row_valid=stage.row_valid, payload_ring=payload_ring,
         )
-        _sync(out.dipcn)
+        jax.block_until_ready(out.dipcn)
         return time.perf_counter() - t0, out
 
     forms = ([True, False] if args.compare else [True])
@@ -125,16 +121,21 @@ def run_mesh(args):
     print(json.dumps(report), flush=True)
 
 
-def run_tpu_single(args):
+def run_single(args):
     import jax
     import jax.numpy as jnp
 
     from grid_tpu.ops.knn import knn_squared
     from grid_tpu.utils.device import enable_compilation_cache
+    from grid_tpu.utils.peaks import peak_for
 
+    device = jax.devices()[0]
+    if device.platform != "gpu":
+        raise SystemExit(f"--single measures only on a GPU, found {device.platform!r}")
     enable_compilation_cache()
-    print("devices:", jax.devices(), flush=True)
-    report = {"mode": "tpu-single", "n": args.n, "r": args.r, "k": args.k}
+    report = {"mode": "single", "n": args.n, "r": args.r, "k": args.k,
+              "device": {"platform": device.platform, "kind": device.device_kind,
+                         "count": len(jax.devices())}}
     rng = np.random.default_rng(0)
     # build on device in column chunks to keep host allocation < 1 shard
     cols = []
@@ -147,33 +148,32 @@ def run_tpu_single(args):
     jax.block_until_ready(z)
 
     t0 = time.perf_counter()
-    d, i = knn_squared(z, args.k, row_block=512)
-    _sync(d)
-    report["knn_cold_s"] = round(time.perf_counter() - t0, 2)
+    d, i = jax.block_until_ready(knn_squared(z, args.k, row_block=512))
+    report["knn_cold_s"] = time.perf_counter() - t0
 
-    # BENCH-protocol steady state: enqueue `iters` dispatches, one scalar
-    # sync, min over rounds — same methodology as bench.py (the cold number
-    # above includes compile and is kept for capacity context)
-    iters = max(1, args.iters)
+    # steady state: each call ends in block_until_ready; best of the
+    # rounds (the cold number above includes compile)
     best = float("inf")
-    for _ in range(args.rounds):
+    for _ in range(args.rounds * max(1, args.iters)):
         t0 = time.perf_counter()
-        for _ in range(iters):
-            d, i = knn_squared(z, args.k, row_block=512)
-        _sync(jnp.sum(d[0, :8]))
-        best = min(best, (time.perf_counter() - t0) / iters)
-    report["knn_s"] = round(best, 3)
-    # roofline (one v5e chip: 197 TFLOP/s bf16/f32 MXU peak, 819 GB/s HBM).
-    # Traffic model for the blocked two-stage selection: the [R, N] z.T
-    # panel streams once per row block (Gram), the [B, N] d2 panel is
-    # written once and read once by selection, outputs are [N, k] x2.
+        d, i = jax.block_until_ready(knn_squared(z, args.k, row_block=512))
+        best = min(best, time.perf_counter() - t0)
+    report["knn_s"] = best
+    # roofline against the peak table (Gram at Precision.HIGHEST: f32
+    # outside the tensor cores). Traffic model for the blocked two-stage
+    # selection: the [R, N] z.T panel streams once per row block (Gram),
+    # the [B, N] d2 panel is written once and read once by selection,
+    # outputs are [N, k] x2.
     n_, r_, k_ = args.n, args.r, args.k
     n_blocks = -(-n_ // 512)
     model_flops = 2.0 * n_ * n_ * r_
     model_bytes = (n_blocks * n_ * r_ * 4.0) + 2.0 * n_ * n_ * 4.0 + n_ * k_ * 8.0
-    report["knn_mfu"] = round(model_flops / best / 197e12, 4)
-    report["knn_hbm_util"] = round(model_bytes / best / 819e9, 4)
-    report["knn_samples_per_s"] = round(n_ / best, 1)
+    peak = peak_for(device.device_kind)
+    report["knn_mfu"] = None if peak is None else model_flops / best / peak["f32_flops"]
+    report["knn_hbm_util"] = (
+        None if peak is None else model_bytes / best / peak["hbm_bytes_per_s"]
+    )
+    report["knn_samples_per_s"] = n_ / best
 
     # step-6 beyond the d2 budget: the r3 gather-free row-panel form vs the
     # [N, k] gather formulation it replaces (same process, same data)
@@ -183,20 +183,19 @@ def run_tpu_single(args):
     w = jnp.asarray(rng.uniform(0.5, 2.0, args.n).astype(np.float32))
     ok = jnp.ones(args.n, bool)
     t0 = time.perf_counter()
-    dip_p, _ = dipcn_from_distances_panels(
+    dip_p, _ = jax.block_until_ready(dipcn_from_distances_panels(
         z, w, w, ok, ok, k=args.k, n_nbr=min(300, args.k), row_block=512
-    )
-    _sync(dip_p)
-    report["dipcn_panels_s"] = round(time.perf_counter() - t0, 2)
+    ))
+    report["dipcn_panels_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    dip_g, _ = compute_dipcn(w, ok, w[i], ok[i], n_nbr=min(300, args.k))
-    _sync(dip_g)
-    report["dipcn_gather_s"] = round(time.perf_counter() - t0, 2)
+    dip_g, _ = jax.block_until_ready(compute_dipcn(w, ok, w[i], ok[i], n_nbr=min(300, args.k)))
+    report["dipcn_gather_s"] = time.perf_counter() - t0
     report["dipcn_agree"] = round(
         float(np.nanmax(np.abs(np.asarray(dip_p) - np.asarray(dip_g)))), 8
     )
     report["peak_rss_gb"] = round(peak_rss_gb(), 2)
+    report["peak_bytes_in_use"] = (device.memory_stats() or {}).get("peak_bytes_in_use")
     print(json.dumps(report), flush=True)
 
 
@@ -209,15 +208,15 @@ def main():
     ap.add_argument("--rounds", type=int, default=1,
                     help="interleaved timing rounds; min reported")
     ap.add_argument("--iters", type=int, default=3,
-                    help="--tpu mode: dispatches enqueued per timing round")
+                    help="--single mode: timed calls per round")
     ap.add_argument("--compare", action="store_true",
                     help="time the payload ring AND the r2 replicated-"
                          "gather form, interleaved")
-    ap.add_argument("--tpu", action="store_true",
-                    help="single-chip kNN probe instead of the CPU mesh run")
+    ap.add_argument("--single", action="store_true",
+                    help="one-GPU kNN probe instead of the CPU mesh run")
     args = ap.parse_args()
-    if args.tpu:
-        run_tpu_single(args)
+    if args.single:
+        run_single(args)
     else:
         run_mesh(args)
 

@@ -1,6 +1,6 @@
 """CRAM/BAM full-scan decode throughput micro-benchmark.
 
-Reproduces the docs/perf.md "Host-side ingestion" table rows: one synthetic
+Host-side ingestion micro-benchmark: one synthetic
 single-reference file with --n-records reads (default 300k, 100 bp, with
 qualities and read names, paired), written once per codec, then timed
 through the native full-scan record dump (grid_cram_dump / the BAM ingest

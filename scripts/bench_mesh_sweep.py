@@ -1,4 +1,4 @@
-"""CPU-mesh shape-scaling sweep for the parallel layer (VERDICT r1 #6):
+"""CPU-mesh shape-scaling sweep for the parallel layer:
 ring kNN and psum-normalize vs the single-device ops at growing N, plus the
 GSPMD-vs-explicit strategy comparison, on the 8-virtual-device CPU mesh.
 
@@ -19,17 +19,13 @@ import time
 import numpy as np
 
 
-def _sync(x):
-    return np.asarray(x).ravel()[0]
-
-
 def timeit(fn, iters=3):
-    out = fn()
-    _sync(out[0] if isinstance(out, tuple) else out)
+    import jax
+
+    jax.block_until_ready(fn())
     t0 = time.perf_counter()
     for _ in range(iters):
-        out = fn()
-    _sync(out[0] if isinstance(out, tuple) else out)
+        jax.block_until_ready(fn())
     return (time.perf_counter() - t0) / iters
 
 

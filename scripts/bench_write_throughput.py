@@ -1,8 +1,8 @@
-"""CRAM/BAM WRITE-path throughput (VERDICT r4 item 7): the readers are at
-8-10 Mrec/s; this measures the writers on the same record population.
+"""CRAM/BAM WRITE-path throughput: measures the writers on the same record
+population the reader benchmark decodes.
 
-    PYTHONPATH=/root/repo python scripts/bench_write_throughput.py \
-        --out /tmp/writebench [--records 200000] [--rounds 3]
+    python scripts/bench_write_throughput.py --out <dir> [--records 200000] \
+        [--rounds 3]
 
 Measured paths (min over rounds, records/s):
 

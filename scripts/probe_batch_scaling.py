@@ -1,10 +1,9 @@
-"""Batched-ingest scaling evidence (VERDICT r4 item 5): interleaved
+"""Batched-ingest scaling evidence: interleaved
 min-of-rounds batch-vs-loop at t1/t2/t4, plus the per-thread busy-time
 instrumentation that shows WHERE the wall-clock goes when the host's
 physical cores are the ceiling.
 
-    PYTHONPATH=/root/repo python scripts/probe_batch_scaling.py \
-        --out /tmp/batch_scale [--n 256] [--rounds 3]
+    python scripts/probe_batch_scaling.py --out <dir> [--n 256] [--rounds 3]
 
 Reads nothing from the device; fabricates a BAM cohort once and re-uses
 it. For each thread count t, one batch call (grid_ingest_batch) and one

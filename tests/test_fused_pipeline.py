@@ -187,8 +187,9 @@ def test_device_dtype_knob(tmp_path):
 
 def test_approx_max_k_recall_is_exact():
     """The d2-resident neighbor selection must pass recall_target=1.0:
-    JAX's 0.95 default makes approx_max_k genuinely approximate ON TPU
-    (CPU lowers to an exact sort, so a numeric CPU test cannot catch a
+    JAX's 0.95 default lets a backend lower approx_max_k to a genuinely
+    approximate selection (CPU and GPU lower it to an exact top-k, so a
+    numeric test cannot catch a
     regression) — and approximate neighbor lists break the written-artifact
     parity contract. Pin it by source inspection."""
     import inspect

@@ -1,6 +1,6 @@
 """Batched multi-locus execution vs the per-locus loop.
 
-The sweep's TPU-first form — per-locus counts as byproducts of the one
+The sweep's batched form — per-locus counts as byproducts of the one
 ingest scan, step 6 for all loci as one [N, N] @ [N, L] device call — must
 reproduce the per-locus loop's artifacts: counts byte-identical, dipCN equal
 up to summation order, haploid tables equal at their written precision.

@@ -374,8 +374,8 @@ class TestPanelDipcn:
 
 class TestMultiwayBisect:
     """The arity knob on the threshold-bisection primitives must be exact
-    for every arity (binary is the measured default; the knob exists for
-    re-measurement on other hardware — docs/perf.md)."""
+    for every arity (binary is the default; the knob exists for
+    re-measurement on other hardware)."""
 
     @pytest.mark.parametrize("arity", [2, 3, 4, 8])
     def test_kth_smallest_exact(self, arity):

@@ -200,8 +200,9 @@ def test_ring_knn_never_materializes_wide_panels():
 
 
 class TestDispatchPolicy:
-    """The measured flat-vs-ring crossover (docs/perf.md mesh sweep) is
-    CODE, not folklore: a configured mesh must not cost a small cohort 2x."""
+    """The flat-vs-ring crossover (parallel/policy.py, from the CPU mesh
+    sweep) is CODE, not folklore: a configured mesh must not make a small
+    cohort pay for the ring."""
 
     def test_crossover_brackets_match_measurements(self):
         from grid_tpu.parallel.policy import choose_cohort_execution

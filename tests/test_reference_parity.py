@@ -67,28 +67,28 @@ def dual_run(tmp_path_factory, reference_modules):
         reference_modules[fn](ref_cfg, console)
 
     # grid_tpu run (exact phasing so step 7 matches bit-for-bit)
-    tpu_cfg = copy.deepcopy(cohort["config"])
-    tpu_out = base / "tpu_results"
-    tpu_out.mkdir()
-    tpu_cfg["output_dir"] = str(tpu_out)
-    tpu_cfg["device"] = {"exact_phasing": True}
-    (tpu_out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
-    run_wgs_pipeline(console=None, config=tpu_cfg)
+    our_cfg = copy.deepcopy(cohort["config"])
+    our_out = base / "our_results"
+    our_out.mkdir()
+    our_cfg["output_dir"] = str(our_out)
+    our_cfg["device"] = {"exact_phasing": True}
+    (our_out / "read_counts.tsv").write_bytes(cohort["counts_file"].read_bytes())
+    run_wgs_pipeline(console=None, config=our_cfg)
 
-    return ref_out, tpu_out
+    return ref_out, our_out
 
 
 def test_normalized_matrix_parity(dual_run):
-    ref_out, tpu_out = dual_run
+    ref_out, our_out = dual_run
     import gzip
 
     ref_lines = gzip.open(ref_out / "mosdepth_results_normalized.tsv.gz", "rt").read().splitlines()
-    tpu_lines = gzip.open(tpu_out / "mosdepth_results_normalized.tsv.gz", "rt").read().splitlines()
-    assert len(ref_lines) == len(tpu_lines)
+    our_lines = gzip.open(our_out / "mosdepth_results_normalized.tsv.gz", "rt").read().splitlines()
+    assert len(ref_lines) == len(our_lines)
     # headers: N, Rwant then values at %.3f
-    assert ref_lines[0] == tpu_lines[0]
-    assert ref_lines[1] == tpu_lines[1]
-    for rl, tl in zip(ref_lines[2:], tpu_lines[2:]):
+    assert ref_lines[0] == our_lines[0]
+    assert ref_lines[1] == our_lines[1]
+    for rl, tl in zip(ref_lines[2:], our_lines[2:]):
         rp, tp = rl.split("\t"), tl.split("\t")
         assert rp[0] == tp[0]  # sample id
         assert rp[1] == tp[1]  # scale %.2f
@@ -101,40 +101,40 @@ def test_normalized_matrix_parity(dual_run):
 
 
 def test_neighbors_parity(dual_run):
-    ref_out, tpu_out = dual_run
+    ref_out, our_out = dual_run
     from grid_tpu.io.formats import read_neighbors
 
     ref_nbrs, ref_scales = read_neighbors(ref_out / "neighbor_coverage.zMax2.0.tsv.gz")
-    tpu_nbrs, tpu_scales = read_neighbors(tpu_out / "neighbor_coverage.zMax2.0.tsv.gz")
-    assert set(ref_nbrs) == set(tpu_nbrs)
-    assert ref_scales == tpu_scales
+    our_nbrs, our_scales = read_neighbors(our_out / "neighbor_coverage.zMax2.0.tsv.gz")
+    assert set(ref_nbrs) == set(our_nbrs)
+    assert ref_scales == our_scales
     for sid in ref_nbrs:
         ref_set = {n for n, _, _ in ref_nbrs[sid]}
-        tpu_set = {n for n, _, _ in tpu_nbrs[sid]}
-        assert ref_set == tpu_set, f"neighbor set differs for {sid}"
+        our_set = {n for n, _, _ in our_nbrs[sid]}
+        assert ref_set == our_set, f"neighbor set differs for {sid}"
         ref_d = {n: d for n, _, d in ref_nbrs[sid]}
-        tpu_d = {n: d for n, _, d in tpu_nbrs[sid]}
+        our_d = {n: d for n, _, d in our_nbrs[sid]}
         for n in ref_d:
-            assert abs(ref_d[n] - tpu_d[n]) <= 0.01001
+            assert abs(ref_d[n] - our_d[n]) <= 0.01001
 
 
 def test_dipcn_parity(dual_run):
-    ref_out, tpu_out = dual_run
+    ref_out, our_out = dual_run
     from grid_tpu.io.formats import read_dipcn
 
     ref_ids, ref_vals, _ = read_dipcn(ref_out / "diploid_genotypes.tsv")
-    tpu_ids, tpu_vals, _ = read_dipcn(tpu_out / "diploid_genotypes.tsv")
-    assert ref_ids == tpu_ids
-    np.testing.assert_allclose(tpu_vals, ref_vals, rtol=1e-9)
+    our_ids, our_vals, _ = read_dipcn(our_out / "diploid_genotypes.tsv")
+    assert ref_ids == our_ids
+    np.testing.assert_allclose(our_vals, ref_vals, rtol=1e-9)
 
 
 def test_haploid_parity_exact_mode(dual_run):
-    ref_out, tpu_out = dual_run
+    ref_out, our_out = dual_run
     ref_lines = (ref_out / "haploid_genotypes.tsv").read_text().splitlines()
-    tpu_lines = (tpu_out / "haploid_genotypes.tsv").read_text().splitlines()
+    our_lines = (our_out / "haploid_genotypes.tsv").read_text().splitlines()
     # exact_phasing reproduces the reference's Gauss-Seidel ordering, so the
     # files must be IDENTICAL
-    assert ref_lines == tpu_lines
+    assert ref_lines == our_lines
 
 
 def test_haploid_ibd_weighted_parity(tmp_path, reference_modules, dual_run):
@@ -142,14 +142,14 @@ def test_haploid_ibd_weighted_parity(tmp_path, reference_modules, dual_run):
     mode vs the reference, byte-for-byte, reusing the dipCN artifact."""
     import shutil
 
-    ref_out, tpu_out = dual_run
+    ref_out, our_out = dual_run
     # both read the same dipCN file; give each its own output dir
     ref_dir = tmp_path / "ref"
-    tpu_dir = tmp_path / "tpu"
+    our_dir = tmp_path / "ours"
     ref_dir.mkdir()
-    tpu_dir.mkdir()
+    our_dir.mkdir()
     shutil.copy(ref_out / "diploid_genotypes.tsv", ref_dir / "diploid_genotypes.tsv")
-    shutil.copy(ref_out / "diploid_genotypes.tsv", tpu_dir / "diploid_genotypes.tsv")
+    shutil.copy(ref_out / "diploid_genotypes.tsv", our_dir / "diploid_genotypes.tsv")
 
     # fabricate an iLASH file over the dipCN sample IDs
     from grid_tpu.io.formats import read_dipcn
@@ -202,14 +202,14 @@ def test_haploid_ibd_weighted_parity(tmp_path, reference_modules, dual_run):
 
     reference_modules["hi"](ref_cfg, make_console())
 
-    tpu_cfg = copy.deepcopy(base_cfg)
-    tpu_cfg["output_dir"] = str(tpu_dir)
-    tpu_cfg["device"] = {"exact_phasing": True}
+    our_cfg = copy.deepcopy(base_cfg)
+    our_cfg["output_dir"] = str(our_dir)
+    our_cfg["device"] = {"exact_phasing": True}
     from grid_tpu.steps.haploid import hi_inference
 
-    hi_inference(tpu_cfg, None)
+    hi_inference(our_cfg, None)
 
     assert (
         (ref_dir / "haploid_genotypes.tsv").read_text()
-        == (tpu_dir / "haploid_genotypes.tsv").read_text()
+        == (our_dir / "haploid_genotypes.tsv").read_text()
     )
